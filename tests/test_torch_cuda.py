@@ -1,5 +1,6 @@
-"""The CUDA kernels K1 (gram) and K2 (Cholesky) against their plain
-PyTorch versions, on the GPU.
+"""The CUDA kernels K1 (gram), K2 (Cholesky) and K3 (diagonal-block factor)
+against their plain PyTorch versions, and the fit's default device, on the
+GPU.
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit; without them each
 skips. This file imports no JAX, so it also runs on a machine without it:
@@ -10,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from waveome_tpu_torch.cuda_ops import chol_cuda, gram_cuda
+from waveome_tpu_torch.cuda_ops import chol_cuda, diag_factor_cuda, gram_cuda
+from waveome_tpu_torch.datasets import simulate
+from waveome_tpu_torch.fit import fit_outcomes_penalized
 from waveome_tpu_torch.kernels import KernelSpec, Primitive, full_kernel_build
 from waveome_tpu_torch.kernels.gram import gram, gram_plain
-from waveome_tpu_torch.linalg import cholesky
+from waveome_tpu_torch.linalg import cholesky, cholesky_hybrid
+from waveome_tpu_torch.tools import gram_nan_min
 
 pytestmark = pytest.mark.cuda
 
@@ -24,6 +28,9 @@ GRAM_RTOL = 1e-5
 # K2 and cuSOLVER sum the Schur updates in different orders; on these
 # grams (condition number up to ~1e5) the factors agree to ~1e-4 of max|L|.
 CHOL_RTOL = 1e-3
+# K3 against cholesky_ex + solve_triangular on 48x48 blocks: both are
+# float32 with different summation orders; L11·L11⁻¹ = I to ~48·eps·cond.
+DIAG_RTOL = 1e-4
 
 
 @pytest.fixture
@@ -158,3 +165,52 @@ def test_kernels_reject_float64(dev):
     X = torch.zeros((4, 3), dtype=torch.float64, device=dev)
     with pytest.raises(TypeError):
         gram_cuda.gram_forward(spec, raw, X, X)
+
+
+def test_diag_factor_kernel_matches_plain(dev):
+    A = _grams(500, 8, dev)
+    D = A[:, 96:144, 96:144].contiguous()  # a diagonal block of each gram
+    before = diag_factor_cuda.launch_count
+    L, Linv = diag_factor_cuda.diag_factor_cuda(D)
+    assert diag_factor_cuda.launch_count == before + 1
+    L_ref, Linv_ref = diag_factor_cuda.diag_factor_plain(D)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    assert torch.equal(torch.triu(Linv, 1), torch.zeros_like(Linv))
+    assert (L - L_ref).abs().max() / L_ref.abs().max() < DIAG_RTOL
+    assert (Linv - Linv_ref).abs().max() / Linv_ref.abs().max() < DIAG_RTOL
+    eye = torch.eye(48, device=dev)
+    assert (L @ Linv - eye).abs().max() < DIAG_RTOL
+    # only the lower triangle is read
+    L2, _ = diag_factor_cuda.diag_factor_cuda(
+        torch.tril(D) + 5.0 * torch.triu(torch.ones_like(D), 1))
+    assert torch.equal(L2, L)
+
+
+def test_cholesky_hybrid_matches_k2(dev):
+    A = _grams(200, 6, dev)[1::2].contiguous()  # the sigma^2 = 1 grams
+    before = diag_factor_cuda.launch_count
+    L = cholesky_hybrid(A)
+    assert diag_factor_cuda.launch_count == before + 5  # 200 -> 240 = 5x48
+    ref = chol_cuda.cholesky_cuda(A)
+    torch.cuda.synchronize()
+    assert (L - ref).abs().max() / ref.abs().max() < CHOL_RTOL
+
+
+def test_fit_runs_on_cuda_by_default(dev):
+    X, Ys = simulate(n_units=10, n_per=6, n_outcomes=3)
+    spec = full_kernel_build(cat_vars=[0, 2], num_vars=[1], unit_idx=0,
+                             return_sum=True)
+    before = gram_cuda.launch_count
+    res = fit_outcomes_penalized(X, Ys, spec, num_inducing_points=20,
+                                 max_iter=5)
+    assert res.results.loss.device.type == "cuda"
+    assert gram_cuda.launch_count > before
+    assert bool(torch.isfinite(res.results.loss).all())
+
+
+def test_gram_loop_harness_runs_on_cuda_by_default(dev):
+    before = gram_cuda.launch_count
+    its, bad, hist = gram_nan_min.run(D=1, steps=2)
+    assert hist.device.type == "cuda" and gram_cuda.launch_count > before
+    assert its.tolist() == [2] * 4 and not bool(bad.any())

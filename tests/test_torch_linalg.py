@@ -1,5 +1,8 @@
 """The port's Cholesky (CholeskyFn: cholesky_ex on the CPU, kernel K2 on
-the GPU; Murray pullback backward) against waveome_tpu.linalg."""
+the GPU; Murray pullback backward) against waveome_tpu.linalg, and the
+hybrid blocked Cholesky with its diagonal-block factor (kernel K3 on the
+GPU, diag_factor_plain on the CPU) against waveome_tpu's Pallas hybrid in
+interpret mode."""
 
 import jax
 import jax.numpy as jnp
@@ -9,8 +12,15 @@ import torch
 from torch_parity import assert_close, t64
 
 from waveome_tpu.linalg import _blocked_cholesky_bwd, blocked_cholesky
+from waveome_tpu.pallas_ops import chol_pallas
+from waveome_tpu_torch.cuda_ops import diag_factor_cuda
 from waveome_tpu_torch.cuda_ops.chol_cuda import cholesky_plain
-from waveome_tpu_torch.linalg import cholesky, cholesky_pullback
+from waveome_tpu_torch.linalg import (
+    cholesky,
+    cholesky_hybrid,
+    cholesky_pullback,
+    hybrid_supported,
+)
 
 
 def _spd_batch(N, B=3, noise=0.05, seed=0):
@@ -64,3 +74,50 @@ def test_nan_on_non_positive_definite_without_raising():
     # the reference's lower triangle is NaN too
     assert np.isnan(want[1][np.tril_indices(12)]).all()
     assert torch.isnan(cholesky_plain(t64(A))[1]).all()
+
+
+def _random_spd(B, N, seed):
+    """The reference's own test matrices (tests/test_pallas_chol.py)."""
+    A = np.random.default_rng(seed).normal(size=(B, N, N))
+    return A @ np.swapaxes(A, -1, -2) + N * np.eye(N)
+
+
+def test_diag_factor_plain_matches_pallas_interpret():
+    """(L11, L11⁻¹) of 8×8 blocks against the Pallas body in interpret
+    mode: the plain version solves where the kernel substitutes, so they
+    agree to float64 rounding."""
+    D = _random_spd(5, 8, seed=5)
+    L, Linv = diag_factor_cuda.diag_factor_plain(t64(D))
+    want_L, want_inv = chol_pallas._diag_factor(jnp.asarray(D),
+                                                interpret=True)
+    assert_close(L, want_L, atol=1e-13)
+    assert_close(Linv, want_inv, atol=1e-13)
+    assert torch.equal(torch.triu(Linv, 1), torch.zeros_like(Linv))
+    L2, _ = diag_factor_cuda.diag_factor(t64(D))  # CPU: the plain version
+    assert torch.equal(L2, L)
+
+
+def test_cholesky_hybrid_matches_pallas_hybrid():
+    """B = 2, N = 20 at blk = 8 (pads to 24, three block steps), as
+    tests/test_pallas_chol.py runs the reference; within 1e-5 of max|L|
+    of the interpret-mode Pallas hybrid, and of cholesky_ex."""
+    K = _random_spd(2, 20, seed=3)
+    L = cholesky_hybrid(t64(K), blk=8)
+    want = np.asarray(chol_pallas.cholesky_hybrid(
+        jnp.asarray(K), diag_impl="pallas", interpret=True, blk=8))
+    scale = np.abs(want).max()
+    assert np.abs(L.numpy() - want).max() < 1e-5 * scale
+    assert np.abs(L.numpy() - np.linalg.cholesky(K)).max() < 1e-5 * scale
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    # a single matrix and a nested batch go through the same blocks
+    assert_close(cholesky_hybrid(t64(K[0]), blk=8), L[0].numpy())
+    assert cholesky_hybrid(t64(K).reshape(2, 1, 20, 20), blk=8).shape == (
+        2, 1, 20, 20)
+
+
+def test_hybrid_supported_bounds():
+    assert hybrid_supported(48) and hybrid_supported(500)
+    assert hybrid_supported(2048)
+    assert not hybrid_supported(47) and not hybrid_supported(2049)
+    for n in (47, 48, 500, 2048, 2049):
+        assert hybrid_supported(n) == chol_pallas.hybrid_supported(n)

@@ -188,7 +188,14 @@ def test_init_params_and_masks():
     small = svgp.make_config(config.spec, "gaussian", num_data=24,
                              input_dim=3, num_inducing_points=10)
     g = torch.Generator().manual_seed(3)
-    z = svgp.init_params(small, X, generator=g, dtype=torch.float64)["z"]
+    ps = svgp.init_params(small, X, generator=g, dtype=torch.float64)
+    z = ps["z"]
     assert z.shape == (10, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        svgp.collapsed_elbo(small, p, t64(X), t64(X[:, :1]))
+    # M < N: distinct rows of X, the same ones for the same seed
+    rows = [int(np.flatnonzero((X == r).all(1))[0]) for r in z.numpy()]
+    assert len(set(rows)) == 10
+    g = torch.Generator().manual_seed(3)
+    assert torch.equal(svgp.init_params(small, X, generator=g,
+                                        dtype=torch.float64)["z"], z)
+    assert bool(torch.isfinite(svgp.collapsed_elbo(small, ps, t64(X),
+                                                   t64(X[:, 1:2]))))

@@ -37,6 +37,18 @@ def default_float() -> torch.dtype:
     return _DEFAULT_FLOAT
 
 
+def resolve_device(device, caller: str) -> torch.device:
+    """The caller's device, else the CUDA device; without CUDA this raises
+    instead of falling back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{caller} runs on CUDA unless a device is "
+                           f"given, and no CUDA device is available; pass "
+                           f"device='cpu' for the CPU")
+    return torch.device("cuda")
+
+
 def default_jitter(dtype: Optional[torch.dtype] = None) -> float:
     """Cholesky jitter: 1e-6 in float64 (the GPflow default), 1e-4 in
     float32, where batched factorizations need a larger floor."""

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds),
-under ``_build/<hash of sources and flags>/`` inside the package, and
-``ctypes`` loads it. Each C entry takes device pointers and a
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` into an object file,
+one process per source, all started together, and links them into one
+shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds), under ``_build/<hash of sources and flags>/`` inside the
+package; ``ctypes`` loads it. Each C entry takes device pointers and a
 ``cudaStream_t``, launches on that stream, allocates nothing and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an exception.
 """
@@ -21,10 +22,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +36,8 @@ _SIGNATURES = {
                              _P, _I, _I, _I, _I, _I, _I, _P],
     # a, l, B, N, stream
     "waveome_chol_forward": [_P, _P, _I, _I, _P],
+    # d, l, linv, B, stream
+    "waveome_diag_factor_forward": [_P, _P, _P, _I, _P],
 }
 
 _lib = None
@@ -75,17 +77,37 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"CUDA kernel build failed ({' '.join(cmd)}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    objs, procs = [], []
+    for src in (s for s in srcs if s.endswith(".cu")):
+        obj = os.path.join(out_dir, os.path.basename(src) + f".{tag}.o")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}:\n{out}")
+    if not failed:
+        tmp = f"{so}.{tag}"
+        cmd = [_nvcc(), *ARCH, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}:\n{log[-1]}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(log)
     return so
 
 
@@ -100,8 +122,9 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.waveome_error_string.argtypes = [ctypes.c_int]
         lib.waveome_error_string.restype = ctypes.c_char_p
-        lib.waveome_chol_max_n.argtypes = []
-        lib.waveome_chol_max_n.restype = ctypes.c_int
+        for name in ("waveome_chol_max_n", "waveome_diag_factor_nb"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
 

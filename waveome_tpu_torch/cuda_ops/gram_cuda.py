@@ -6,9 +6,10 @@ parameter sets; ``gram_forward`` broadcasts the batch dimensions and picks
 the device's implementation: K1 for CUDA tensors, the plain PyTorch
 ``kernels.gram.gram_plain`` for CPU tensors. ``GramFn`` pairs that forward
 with ``gram_vjp_analytic``, the plain PyTorch port of the reference's
-hand-derived backward: prefix/suffix leave-one-out products and the
-softplus chain. Like the reference it computes no X cotangent, and it
-raises where the reference would return a silent zero.
+hand-derived backward (prefix/suffix leave-one-out products and the
+softplus chain), extended with the analytic ∂/∂X1 and ∂/∂X2 that the
+trainable inducing points need. The reference's Pallas backward has no X
+cotangent; JAX gets it by differentiating ``gram_xla``.
 """
 
 from __future__ import annotations
@@ -149,7 +150,7 @@ def gram_forward(spec: KernelSpec, raw: torch.Tensor, X1: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# analytic backward: hand-derived ∂⟨cot, K⟩/∂raw
+# analytic backward: hand-derived ∂⟨cot, K⟩/∂raw, /∂component_mask, /∂X
 # ---------------------------------------------------------------------------
 
 def _factor_tile_grads(prim, p, x1, x2):
@@ -226,16 +227,73 @@ def _factor_tile_grads(prim, p, x1, x2):
     raise NotImplementedError(f"analytic gram backward: op {op}")
 
 
+def _factor_x_grads(prim, p, x1, x2, t):
+    """(∂tile/∂x1, ∂tile/∂x2) of one primitive's tile ``t`` (..., N, M),
+    elementwise; ``None`` for an op whose tile does not move with x
+    (constant, and categorical, whose ``round`` has zero derivative as in
+    JAX), and ∂/∂x2 ``None`` where it is −∂/∂x1 (the stationary ops, which
+    depend on x1 − x2 only). Same floor and clip as kernels/ops.py: a
+    clipped exponent has zero derivative."""
+    op = prim.op
+    if op in ("constant", "categorical"):
+        return None, None
+    v = p[..., 0, None, None]
+    if op in ("linear", "polynomial"):
+        scale = v
+        if op == "polynomial":
+            d = prim.degree
+            scale = d * (v * x1[..., :, None] * x2[..., None, :]
+                         + p[..., 2, None, None]) ** (d - 1) * v
+        return scale * x2[..., None, :], scale * x1[..., :, None]
+    d = x1[..., :, None] - x2[..., None, :]
+    ls = torch.clamp(p[..., 1, None, None], min=1e-10)
+    if op == "squared_exponential":
+        live = 0.5 * (d * d) / (ls * ls) < 80.0
+        return torch.where(live, -t * d / (ls * ls), 0.0), None
+    if op == "matern12":
+        live = torch.abs(d) / ls < 80.0
+        return torch.where(live, -t * torch.sign(d) / ls, 0.0), None
+    if op in ("matern32", "matern52"):
+        c = math.sqrt(3.0) if op == "matern32" else math.sqrt(5.0)
+        r = c * torch.abs(d) / ls
+        E = torch.exp(-torch.clamp(r, max=80.0))
+        live = (r < 80.0).to(d.dtype)
+        if op == "matern32":  # t = v (1 + r) E
+            dt_dr = v * E * (1.0 - (1.0 + r) * live)
+        else:  # t = v (1 + r + r²/3) E
+            dt_dr = v * E * (1.0 + 2.0 * r / 3.0
+                             - (1.0 + r + r * r / 3.0) * live)
+        return dt_dr * c * torch.sign(d) / ls, None
+    if op == "periodic":
+        per = torch.clamp(p[..., 2, None, None], min=1e-10)
+        ang = math.pi * d / per
+        s = torch.sin(ang) / ls
+        live = 2.0 * s * s < 80.0
+        return torch.where(
+            live, -t * 4.0 * s * torch.cos(ang) * math.pi / (per * ls),
+            0.0), None
+    if op == "rational_quadratic":
+        a = p[..., 2, None, None]
+        u = 1.0 + (d * d) / (2.0 * a * ls * ls)
+        return -v * u ** (-a - 1.0) * d / (ls * ls), None
+    raise NotImplementedError(f"analytic gram backward: op {op}")
+
+
 def gram_vjp_analytic(spec: KernelSpec, raw, X1, X2, component_mask,
-                      factor_mask, cot):
-    """(∂⟨cot, K⟩/∂raw, ∂⟨cot, K⟩/∂component_mask or None), both over the
-    batch shape of ``cot``; callers reduce broadcast dimensions."""
+                      factor_mask, cot, need_x: bool = False):
+    """(∂⟨cot, K⟩/∂raw, ∂⟨cot, K⟩/∂component_mask or None, ∂/∂X1, ∂/∂X2),
+    all over the batch shape of ``cot``; callers reduce broadcast
+    dimensions. The X cotangents are None unless ``need_x``."""
     batch = cot.shape[:-2]
     params = constrain(raw).expand(tuple(batch) + raw.shape[-3:])
     active = spec.active_factor_mask()
-    draw = torch.zeros(tuple(batch) + raw.shape[-3:], dtype=raw.dtype,
-                       device=raw.device)
+    kw = dict(dtype=raw.dtype, device=raw.device)
+    draw = torch.zeros(tuple(batch) + raw.shape[-3:], **kw)
     dmask = [] if component_mask is not None else None
+    dX1 = dX2 = None
+    if need_x:
+        dX1 = torch.zeros(tuple(batch) + X1.shape[-2:], **kw)
+        dX2 = torch.zeros(tuple(batch) + X2.shape[-2:], **kw)
     for i, comp in enumerate(spec.padded().components):
         tiles, grads, idxs = [], [], []
         keep = {}
@@ -255,8 +313,7 @@ def gram_vjp_analytic(spec: KernelSpec, raw, X1, X2, component_mask,
             idxs.append(j)
         if not tiles:
             if dmask is not None:
-                dmask.append(torch.zeros(batch, dtype=raw.dtype,
-                                         device=raw.device))
+                dmask.append(torch.zeros(batch, **kw))
             continue
         F = len(tiles)
         prefix, suffix = [None] * F, [None] * F
@@ -276,8 +333,7 @@ def gram_vjp_analytic(spec: KernelSpec, raw, X1, X2, component_mask,
         if factor_mask is not None:
             fscale = torch.amax(
                 factor_mask[..., i, :] * torch.as_tensor(
-                    active[i], dtype=raw.dtype, device=raw.device),
-                dim=-1)[..., None, None]
+                    active[i], **kw), dim=-1)[..., None, None]
             scale = fscale if scale is None else scale * fscale
         Gm = cot if scale is None else cot * scale
         for f in range(F):
@@ -286,39 +342,57 @@ def gram_vjp_analytic(spec: KernelSpec, raw, X1, X2, component_mask,
                 loo = suffix[f] if loo is None else loo * suffix[f]
             w = Gm if loo is None else Gm * loo
             j = idxs[f]
+            prim = comp[j]
             if grads[f] is None:  # arccosine: autograd on its own tile
-                prim = comp[j]
                 with torch.enable_grad():
                     pp = params[..., i, j, :].detach().requires_grad_(True)
-                    tt = ops.k_arccosine(pp, X1[..., prim.dim],
-                                         X2[..., prim.dim], order=prim.order)
+                    xs = [X[..., prim.dim].expand(
+                        tuple(batch) + X.shape[-2:-1]).detach()
+                        .requires_grad_(need_x) for X in (X1, X2)]
+                    tt = ops.k_arccosine(pp, *xs, order=prim.order)
                     if factor_mask is not None:
                         tt = torch.where(keep[j], tt, 1.0)
-                    (g,) = torch.autograd.grad((w * tt).sum(), pp)
-                draw[..., i, j, :] = g
+                    wrt = [pp, *xs] if need_x else [pp]
+                    g = torch.autograd.grad((w * tt).sum(), wrt)
+                draw[..., i, j, :] = g[0]
+                if need_x:
+                    dX1[..., prim.dim] += g[1]
+                    dX2[..., prim.dim] += g[2]
                 continue
             for slot, dt in grads[f].items():
                 draw[..., i, j, slot] = torch.sum(w * dt, dim=(-2, -1))
+            if not need_x:
+                continue
+            g1, g2 = _factor_x_grads(prim, params[..., i, j, :],
+                                     X1[..., prim.dim], X2[..., prim.dim],
+                                     tiles[f])
+            if g1 is None:
+                continue
+            if factor_mask is not None:
+                g1 = torch.where(keep[j], g1, 0.0)
+                g2 = None if g2 is None else torch.where(keep[j], g2, 0.0)
+            wg1 = w * g1
+            dX1[..., prim.dim] += wg1.sum(-1)
+            dX2[..., prim.dim] += (-wg1.sum(-2) if g2 is None
+                                   else (w * g2).sum(-2))
         if dmask is not None:
             full_scaled = full if fscale is None else full * fscale
             dmask.append(torch.sum(cot * full_scaled, dim=(-2, -1)))
     draw = draw * softplus_grad(raw)
     if dmask is not None:
-        return draw, torch.stack(dmask, dim=-1)
-    return draw, None
+        dmask = torch.stack(dmask, dim=-1)
+    return draw, dmask, dX1, dX2
 
 
 class GramFn(torch.autograd.Function):
     """Differentiable gram: forward ``gram_forward`` (K1 on CUDA), backward
-    ``gram_vjp_analytic``. Gradients flow to ``raw`` and
-    ``component_mask``; X1, X2 and ``factor_mask`` must not require
-    gradients."""
+    ``gram_vjp_analytic`` (plain torch). Gradients flow to ``raw``,
+    ``component_mask``, ``X1`` and ``X2`` (the inducing points Z train
+    through Kuu = K(Z, Z) and Kuf = K(Z, X)); ``factor_mask`` must not
+    require gradients."""
 
     @staticmethod
     def forward(ctx, spec, raw, X1, X2, component_mask, factor_mask):
-        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
-            raise ValueError("GramFn computes no gradient for X1 or X2; "
-                             "detach the design or use gram_plain")
         if ctx.needs_input_grad[5]:
             raise ValueError("GramFn computes no gradient for factor_mask")
         ctx.spec = spec
@@ -328,10 +402,11 @@ class GramFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, cot):
         raw, X1, X2, cm, fm = ctx.saved_tensors
-        draw, dmask = gram_vjp_analytic(ctx.spec, raw, X1, X2, cm, fm, cot)
-        draw = draw.sum_to_size(raw.shape) if ctx.needs_input_grad[1] else None
-        if ctx.needs_input_grad[4]:
-            dmask = dmask.sum_to_size(cm.shape)
-        else:
-            dmask = None
-        return None, draw, None, None, dmask, None
+        need = ctx.needs_input_grad
+        draw, dmask, dX1, dX2 = gram_vjp_analytic(
+            ctx.spec, raw, X1, X2, cm, fm, cot, need_x=need[2] or need[3])
+        draw = draw.sum_to_size(raw.shape) if need[1] else None
+        dmask = dmask.sum_to_size(cm.shape) if need[4] else None
+        dX1 = dX1.sum_to_size(X1.shape) if need[2] else None
+        dX2 = dX2.sum_to_size(X2.shape) if need[3] else None
+        return None, draw, dX1, dX2, dmask, None

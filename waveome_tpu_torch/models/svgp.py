@@ -1,5 +1,6 @@
-"""Sparse variational GP and the exact Gaussian objective as functions
-over a parameter dict (counterpart of ``waveome_tpu/models/svgp.py``).
+"""Sparse variational GP and the Gaussian objectives (exact marginal
+likelihood, collapsed bound) as functions over a parameter dict
+(counterpart of ``waveome_tpu/models/svgp.py``).
 
 A model is a static ``SVGPConfig`` plus a dict of tensors:
 ``kernel_raw`` (..., C, F, 4), ``mean_c`` (..., 1), ``lik_raw``
@@ -242,16 +243,17 @@ def log_posterior(config: SVGPConfig, params, X, Y, penalization_factor=0.0,
 
 
 def exact_mll(config: SVGPConfig, params, X, Y, component_mask=None,
-              coded=None, factor_mask=None):
+              coded=None, factor_mask=None, chol=_chol):
     """Exact Gaussian log marginal likelihood, via the Cholesky of
-    K + σ²I: the objective of the M = N Gaussian fit."""
+    K + σ²I: the objective of the M = N Gaussian fit. ``chol`` factors
+    K + σ²I (the line search may pass ``linalg.cholesky_hybrid``)."""
     if config.likelihood.name != "gaussian":
         raise ValueError("exact_mll needs the Gaussian likelihood")
     N = X.shape[-2]
     noise = config.likelihood.constrain(params["lik_raw"])[..., 0]
     K = _K(config, params, X, X, component_mask, coded, factor_mask)
     Ky = K + noise[..., None, None] * _eye(N, K)
-    L = _chol(Ky)
+    L = chol(Ky)
     err = (Y - _mean(config, params, X))[..., 0]
     a = torch.cholesky_solve(err[..., None], L)[..., 0]
     return (-0.5 * torch.sum(err * a, dim=-1)
@@ -260,11 +262,43 @@ def exact_mll(config: SVGPConfig, params, X, Y, component_mask=None,
 
 
 def collapsed_elbo(config: SVGPConfig, params, X, Y, component_mask=None,
-                   coded=None, factor_mask=None):
-    """The M < N collapsed (Titsias) bound is not ported yet."""
-    raise NotImplementedError(
-        "collapsed_elbo (the M < N Gaussian objective) is not ported yet "
-        "(ROADMAP Queue 1 item 6, 'collapsed_elbo')")
+                   coded=None, factor_mask=None, chol=_chol):
+    """The collapsed (Titsias) bound, max over q of the ELBO in closed form:
+    log N(y; c, Qnn + σ²I) − tr(Knn − Qnn)/(2σ²) with Qnn = AᵀA, through
+    B = I + AAᵀ/σ². The objective of the M < N Gaussian fit; ``chol``
+    factors Kuu and B (the line search may pass
+    ``linalg.cholesky_hybrid``)."""
+    if config.likelihood.name != "gaussian":
+        raise ValueError("collapsed_elbo needs the Gaussian likelihood")
+    Z = params["z"]
+    M, N = Z.shape[-2], X.shape[-2]
+    noise = config.likelihood.constrain(params["lik_raw"])[..., 0]
+    Kuu = _K(config, params, Z, Z, component_mask, coded, factor_mask)
+    Kuu = Kuu + default_jitter(Kuu.dtype) * _eye(M, Kuu)
+    L = chol(Kuu)
+    Kuf = _K(config, params, Z, X, component_mask, coded, factor_mask)
+    A = torch.linalg.solve_triangular(L, Kuf, upper=False)  # (..., M, N)
+
+    err = (Y - _mean(config, params, X))[..., 0]
+    B = _eye(M, A) + (A @ A.transpose(-1, -2)) / noise[..., None, None]
+    LB = chol(B)
+    # The quadratic form in residual form: errᵀ(Q + σ²I)⁻¹err = errᵀr/σ²
+    # with r = err − AᵀB⁻¹A err/σ². The textbook −½‖err‖²/σ² + ½‖c‖²
+    # cancels catastrophically in float32 as σ² nears its floor; here
+    # every intermediate stays O(‖err‖²).
+    Aerr = A @ err[..., None]
+    w = torch.cholesky_solve(Aerr, LB) / noise[..., None, None]
+    r = err - (A.transpose(-1, -2) @ w)[..., 0]
+    quad = torch.sum(err * r, dim=-1) / noise
+
+    Kdiag = _Kdiag(config, params, X, component_mask, coded, factor_mask)
+    return (-0.5 * N * math.log(2.0 * math.pi)
+            - torch.sum(torch.log(torch.diagonal(LB, dim1=-2, dim2=-1)),
+                        dim=-1)
+            - 0.5 * N * torch.log(noise)
+            - 0.5 * quad
+            - 0.5 * (torch.sum(Kdiag, dim=-1)
+                     - torch.sum(A * A, dim=(-2, -1))) / noise)
 
 
 def optimal_q(config: SVGPConfig, params, X, Y, component_mask=None,

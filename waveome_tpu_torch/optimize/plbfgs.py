@@ -26,7 +26,6 @@ import torch
 TRIALS = (2.0, 1.0, 0.4, 0.08)
 HISTORY = 10  # curvature pairs kept
 ARMIJO_C1 = 1e-4
-FTOL = 1e-6  # relative improvement below which an iteration stalls
 PATIENCE = 8  # stalled iterations that stop a row
 
 
@@ -150,6 +149,9 @@ def plbfgs_fit(
     max_iter: int,
     tol: float = 3e-5,
     carry: Optional[PLBFGSState] = None,
+    ftol: float = 1e-6,
+    trial_loss_fn: Optional[Callable[[dict], torch.Tensor]] = None,
+    trial_sequential: bool = False,
 ):
     """Minimize ``loss_fn`` over the free entries of every row.
 
@@ -163,8 +165,14 @@ def plbfgs_fit(
     bound. Returns ``(PLBFGSResult, PLBFGSState)``.
 
     Convergence per row: gradient norm < ``tol``, or no relative
-    improvement > FTOL for PATIENCE iterations. A row whose final loss is
-    not finite returns its start parameters and start loss.
+    improvement > ``ftol`` for PATIENCE iterations. A row whose final loss
+    is not finite returns its start parameters and start loss.
+
+    ``trial_loss_fn``: evaluates the line-search trials instead of
+    ``loss_fn`` (never differentiated); the gradient always comes from
+    ``loss_fn``. ``trial_sequential``: evaluate the trials one at a time
+    instead of as one (T, B) batch: the same values with a quarter of the
+    trial batch's live memory.
     """
     layout = FreeLayout(mask)
     x_start = layout.gather(params0).detach()
@@ -172,9 +180,14 @@ def plbfgs_fit(
     big = torch.tensor(1e15, dtype=dtype, device=device)
     trials = torch.tensor(TRIALS, dtype=dtype, device=device)
 
-    def f(x):
-        v = loss_fn(layout.merge(params0, x))
-        return torch.where(torch.isfinite(v), v, big)
+    def make_f(fn):
+        def f(x):
+            v = fn(layout.merge(params0, x))
+            return torch.where(torch.isfinite(v), v, big)
+        return f
+
+    f = make_f(loss_fn)
+    f_trial = f if trial_loss_fn is None else make_f(trial_loss_fn)
 
     def value_and_grad(x):
         with torch.enable_grad():
@@ -213,7 +226,9 @@ def plbfgs_fit(
 
         steps = trials[:, None] * st.stepsize[None, :]  # (T, B)
         with torch.no_grad():
-            fs = f(st.x[None] + steps[..., None] * direction[None])
+            xs = st.x[None] + steps[..., None] * direction[None]
+            fs = (torch.stack([f_trial(x) for x in xs]) if trial_sequential
+                  else f_trial(xs))
         armijo = fs <= st.f_val[None] + ARMIJO_C1 * steps * slope[None]
         any_ok = torch.any(armijo, dim=0)
         fs_sel = torch.where(any_ok[None], torch.where(armijo, fs, big), fs)
@@ -249,14 +264,16 @@ def plbfgs_fit(
         new_step = torch.clamp(new_step, 1e-8, 1e4)
         rel_improve = (st.f_val - f_new) / torch.clamp(torch.abs(st.f_val),
                                                        min=1.0)
-        stall = torch.where(rel_improve > FTOL, 0, st.stall + 1)
+        stall = torch.where(rel_improve > ftol, 0, st.stall + 1)
         return st._replace(x=x_new, f_val=f_new, g=g_new, s_hist=s_hist,
                            y_hist=y_hist, rho=rho, count=count,
                            stepsize=new_step, n_pairs=n_pairs, stall=stall)
 
-    # the one host read of the call: how many iterations this segment runs
-    n_steps = int(torch.clamp(max_iter - state.it, min=0).max()) if (
-        state.it.numel()) else 0
+    # the one host read of the call: how many iterations this segment runs.
+    # A row that is inactive now never moves again, so it adds none (a row
+    # stopped by a non-finite gradient is neither converged nor running).
+    left = torch.where(active_rows(state), max_iter - state.it, 0)
+    n_steps = int(left.max()) if left.numel() else 0
     for _ in range(n_steps):
         active = active_rows(state)
         new = step(state)
