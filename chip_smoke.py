@@ -20,10 +20,13 @@
    parameters (condition number ~4e7), where K2 may fail no more often
    than cholesky_ex and its log-determinants may be at most twice as far
    from float64 as cholesky_ex's;
-5. K3 (48×48 diagonal-block factor and inverse) on the first diagonal
-   block of those 1024 grams against diag_factor_plain, and L11·L11⁻¹ = I;
-   then cholesky_hybrid (K3 + panel GEMMs) on the grams against K2 and a
-   float64 factorization, gated at σ² = 1 and recorded at σ² = 0.05;
+5. K3 (48×48 diagonal-block factor and inverse) against diag_factor_plain,
+   and L11·L11⁻¹ = I: on the first diagonal block of those 1024 grams, and
+   on the second block of 256 of them as the opt-in gives it (views of
+   padded buffers, L11 written in place), with cholesky_ex alone timed
+   beside it; then cholesky_hybrid (K3 + panel GEMMs) on the grams against
+   K2 and a float64 factorization, gated at σ² = 1 and recorded at
+   σ² = 0.05;
 6. K4's harness (tools/pallas_nan_min.py, ported onto K1 as
    waveome_tpu_torch/tools/gram_nan_min.py): finite gradients at every
    step and the same iterates as the loop through gram_plain;
@@ -116,13 +119,14 @@ CHOL_EDGE_NS = [1, 31, 32, 33, 64, 65, 100, 501, 1000]
 KUU_MATRICES = 256  # the Kuu gate's batch
 KUU_LOGDET_SLACK = 2.0  # K2's worst logdet error over cholesky_ex's
 GRAM_EDGE_MS = [499, 500, 501, 503]  # K1's output widths around M % 4 == 0
-# The kernels' times before their redesign, ms (H100 80GB HBM3, 700 W; the
-# first two from PERF.md's table for the previous kernels, the other two
-# from tools/bench_kernels.py on the previous csrc/, lowest of two turns):
+# The kernels' times before their redesign, ms (H100 80GB HBM3, 700 W; K1,
+# K2, K3 and the hybrid at 1024 from PERF.md's table for the previous
+# kernels, the other two from tools/bench_kernels.py on the previous csrc/,
+# lowest of two turns):
 # printed beside this run's times, and kept out of the kernels' JSON line,
 # which holds only what this run measured
 PREVIOUS_MS = {"K1": 6.580, "K2": 10.831, "K2 B=256": 3.339,
-               "K1 M=2000": 23.173}
+               "K1 M=2000": 23.173, "K3": 0.0756, "hybrid": 11.88}
 # The two fits before the kernels' redesign (PERF.md: fits/min, mean
 # iterations, K1 and K2 launches)
 PREVIOUS_FIT = {"M = N path": "3921.7-4144.3 fits/min, 41.9 iterations, "
@@ -179,12 +183,21 @@ def read_counts():
 
 
 def cuda_ms(fn, reps=5):
-    """Mean milliseconds of fn() on the card (CUDA events, after warm-up)."""
+    """Mean milliseconds of fn() on the card (CUDA events, after warm-up).
+    The timed launches queue behind a spin of the device
+    (``torch.cuda._sleep``) that outlasts the host's time to issue them, so
+    that a kernel shorter than its Python launch path is timed back to back
+    on the device and not at the host's pace."""
     import torch
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    per_call = time.perf_counter() - t0  # host and device, an upper bound
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.5 * per_call * reps, 0.2) * 2e9))  # ~2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -530,7 +543,10 @@ def kuu_gate(dev):
 
 
 def diag_checks(dev, A, A64, noise):
-    """K3 on the first 48x48 diagonal block of each gram, then the hybrid
+    """K3 on the first 48x48 diagonal block of each of the 1024 grams (the
+    contiguous entry), and on the second diagonal block of 256 of them,
+    read from a padded copy and written into a factor's block in place, as
+    the hybrid opt-in's trials give it (the strided entry); then the hybrid
     Cholesky it serves, on the whole grams."""
     import torch
 
@@ -539,33 +555,56 @@ def diag_checks(dev, A, A64, noise):
 
     B, N = A.shape[0], A.shape[-1]
     nb = diag_factor_cuda.NB
-    D = A[:, :nb, :nb].contiguous()
-    L, Linv = diag_factor_cuda.diag_factor_cuda(D)
-    L_ref, Linv_ref = diag_factor_cuda.diag_factor_plain(D)
-    err = float((L - L_ref).abs().max())
-    rel = err / float(L_ref.abs().max())
-    inv_rel = float((Linv - Linv_ref).abs().max() / Linv_ref.abs().max())
-    eye_err = float((L @ Linv - torch.eye(nb, device=dev)).abs().max())
-    upper = bool((torch.triu(L, 1) == 0).all() and (torch.triu(Linv, 1)
-                                                      == 0).all())
-    check(rel < DIAG_RTOL and inv_rel < DIAG_RTOL and eye_err < DIAG_INV_TOL
-          and upper,
-          f"K3 at {B}x{nb}x{nb}: max |L - L_plain| {err:.3g} (rel {rel:.3g}),"
-          f" L^-1 rel {inv_rel:.3g} < {DIAG_RTOL}; max |L L^-1 - I| "
-          f"{eye_err:.3g} < {DIAG_INV_TOL}; upper triangles zero {upper}")
-    ms = cuda_ms(lambda: diag_factor_cuda.diag_factor_cuda(D), reps=50)
-    plain_ms = cuda_ms(lambda: diag_factor_cuda.diag_factor_plain(D),
-                       reps=20)
-    print(f"K3 {B}x{nb}x{nb}: kernel {ms * 1e3:.1f} us, plain "
-          f"{plain_ms * 1e3:.1f} us")
-    # D's lower triangle read (the kernel reads no other entry), L and L⁻¹
-    # written whole; ~n³/3 FMAs for the factor and ~n³/6 for the inverse,
-    # n³ float operations per block
-    entry = kernel_entry(
-        "K3 48x48 diagonal-block factor and inverse",
-        "waveome_tpu_torch/csrc/diag_factor.cu",
-        "waveome_tpu/pallas_ops/chol_pallas.py:212", err, ms, plain_ms,
-        4 * B * (nb * (nb + 1) // 2 + 2 * nb * nb), B * nb ** 3)
+    Np = N + (-N) % nb
+    entries, ex_ms = [], []
+    for Bt in (B, 256):
+        if Bt == B:
+            D = A[:, :nb, :nb].contiguous()
+            out = None, None
+            how = "contiguous"
+        else:
+            W = torch.zeros(Bt, Np, Np, device=dev)
+            W[:, :N, :N] = A[:Bt]
+            D = W[:, nb:2 * nb, nb:2 * nb]
+            Lbuf = torch.zeros(Bt, Np, Np, device=dev)
+            out = Lbuf[:, nb:2 * nb, nb:2 * nb], torch.empty(
+                Bt, nb, nb, device=dev)
+            how = f"blocks of ({Bt}, {Np}, {Np}) buffers, in place"
+        L, Linv = diag_factor_cuda.diag_factor_cuda(D, *out)
+        L_ref, Linv_ref = diag_factor_cuda.diag_factor_plain(D)
+        err = float((L - L_ref).abs().max())
+        rel = err / float(L_ref.abs().max())
+        inv_rel = float((Linv - Linv_ref).abs().max()
+                        / Linv_ref.abs().max())
+        eye_err = float((L @ Linv - torch.eye(nb, device=dev)).abs().max())
+        upper = bool((torch.triu(L, 1) == 0).all()
+                     and (torch.triu(Linv, 1) == 0).all())
+        check(rel < DIAG_RTOL and inv_rel < DIAG_RTOL
+              and eye_err < DIAG_INV_TOL and upper,
+              f"K3 at {Bt}x{nb}x{nb} ({how}): max |L - L_plain| {err:.3g} "
+              f"(rel {rel:.3g}), L^-1 rel {inv_rel:.3g} < {DIAG_RTOL}; max "
+              f"|L L^-1 - I| {eye_err:.3g} < {DIAG_INV_TOL}; upper triangles "
+              f"zero {upper}")
+        ms = cuda_ms(lambda: diag_factor_cuda.diag_factor_cuda(D, *out),
+                     reps=200)
+        plain_ms = cuda_ms(lambda: diag_factor_cuda.diag_factor_plain(D),
+                           reps=20)
+        ex_ms.append(cuda_ms(lambda: torch.linalg.cholesky_ex(D), reps=50))
+        print(f"K3 {Bt}x{nb}x{nb} ({how}): kernel {ms * 1e3:.2f} us "
+              f"(before the redesign: {PREVIOUS_MS['K3'] * 1e3:.1f} us at "
+              f"1024), plain {plain_ms * 1e3:.1f} us; cholesky_ex alone (L "
+              f"without L^-1) {ex_ms[-1] * 1e3:.2f} us")
+        # D's lower triangle read (the kernel reads no other entry), L and
+        # L⁻¹ written whole; ~n³/3 FMAs for the factor and ~n³/6 for the
+        # inverse, n³ float operations per block
+        entries.append(kernel_entry(
+            f"K3 48x48 diagonal-block factor and inverse ({Bt} blocks, "
+            f"{how})", "waveome_tpu_torch/csrc/diag_factor.cu",
+            "waveome_tpu/pallas_ops/chol_pallas.py:212", err, ms, plain_ms,
+            4 * Bt * (nb * (nb + 1) // 2 + 2 * nb * nb), Bt * nb ** 3))
+    check(entries[0]["ms"] < ex_ms[0],
+          f"K3 at {B}x{nb}x{nb} is faster than cholesky_ex alone: "
+          f"{entries[0]['ms'] * 1e3:.2f} us < {ex_ms[0] * 1e3:.2f} us")
 
     Lh = cholesky_hybrid(A)
     L2 = chol_cuda.cholesky_forward(A)
@@ -600,8 +639,9 @@ def diag_checks(dev, A, A64, noise):
     del Lh, L2, L64
     h_ms = cuda_ms(lambda: cholesky_hybrid(A), reps=3)
     k2_ms = cuda_ms(lambda: chol_cuda.cholesky_forward(A), reps=3)
-    print(f"cholesky_hybrid {B}x{N}x{N}: {h_ms:.3f} ms (K2 {k2_ms:.3f} ms)")
-    return entry
+    print(f"cholesky_hybrid {B}x{N}x{N}: {h_ms:.3f} ms (K2 {k2_ms:.3f} ms; "
+          f"before K3's redesign: {PREVIOUS_MS['hybrid']:.2f} ms)")
+    return entries
 
 
 def harness_checks(dev):
@@ -875,7 +915,7 @@ def run_phases(dev):
 
     k1, k1w = gram_checks(dev)
     k2, k2s, A, A64, noise = chol_checks(dev)
-    k3 = diag_checks(dev, A, A64, noise)
+    k3, k3s = diag_checks(dev, A, A64, noise)
     del A, A64
     k4 = harness_checks(dev)
 
@@ -894,12 +934,12 @@ def run_phases(dev):
                          imp_finite_min=SPARSE_IMP_FINITE_MIN)
     optin = hybrid_optin(dev, X, Ys, spec)
 
-    k3["launches"] = optin["K3"]
+    k3["launches"] = k3s["launches"] = optin["K3"]
     for k, name in ((k1, "K1"), (k1w, "K1"), (k2, "K2"), (k2s, "K2")):
         k["launches"] = sparse[name]
         k["launches_by_path"] = {"M = N": exact[name], "sparse": sparse[name],
                                  "hybrid opt-in": optin[name]}
-    return [k1, k1w, k2, k2s, k3, k4]
+    return [k1, k1w, k2, k2s, k3, k3s, k4]
 
 
 def main():

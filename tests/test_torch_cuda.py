@@ -278,6 +278,104 @@ def test_diag_factor_kernel_matches_plain(dev):
     assert torch.equal(L2, L)
 
 
+def _diag_blocks(B, dev, seed=0):
+    """B diagonal blocks of RBF grams + σ²I (σ² alternating 0.05 and 1),
+    each from its own points."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.normal(size=(B, 48)), axis=1)
+    K = np.exp(-0.5 * (x[:, :, None] - x[:, None, :]) ** 2 / 0.3 ** 2)
+    noise = np.where(np.arange(B) % 2 == 0, 0.05, 1.0)
+    return torch.tensor(K + noise[:, None, None] * np.eye(48),
+                        dtype=torch.float32, device=dev)
+
+
+def _assert_diag_close(L, Linv, D):
+    L_ref, Linv_ref = diag_factor_cuda.diag_factor_plain(D)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    assert torch.equal(torch.triu(Linv, 1), torch.zeros_like(Linv))
+    assert (L - L_ref).abs().max() / L_ref.abs().max() < DIAG_RTOL
+    assert (Linv - Linv_ref).abs().max() / Linv_ref.abs().max() < DIAG_RTOL
+    eye = torch.eye(48, device=D.device)
+    assert (L @ Linv - eye).abs().max() < DIAG_RTOL
+
+
+@pytest.mark.parametrize("B", [1, 2, 255, 256, 1024, 3000])
+def test_diag_factor_kernel_batch_sizes(dev, B):
+    """Partial blocks of warps (B % 4 != 0) and more than one wave (3000)."""
+    D = _diag_blocks(B, dev, seed=B)
+    before = diag_factor_cuda.launch_count
+    L, Linv = diag_factor_cuda.diag_factor_cuda(D)
+    assert diag_factor_cuda.launch_count == before + 1
+    _assert_diag_close(L, Linv, D)
+
+
+def test_diag_factor_kernel_in_place_on_padded_blocks(dev):
+    """The hybrid's use: the diagonal blocks of a padded (B, 528, 528)
+    buffer at every offset, written into another such buffer; every entry
+    outside the block keeps its guard value."""
+    B, Np = 6, 528
+    W = torch.randn(B, Np, Np, device=dev)
+    blocks = _diag_blocks(B * Np // 48, dev).view(Np // 48, B, 48, 48)
+    guard = -7.0
+    out = torch.full((B, Np, Np), guard, device=dev)
+    inv = torch.empty(B, 48, 48, device=dev)
+    written = torch.zeros(Np, Np, dtype=torch.bool, device=dev)
+    for i, o in enumerate(range(0, Np - 47, 48)):
+        W[:, o:o + 48, o:o + 48] = blocks[i]
+        before = diag_factor_cuda.launch_count
+        L, Linv = diag_factor_cuda.diag_factor_cuda(
+            W[:, o:o + 48, o:o + 48], out[:, o:o + 48, o:o + 48], inv)
+        assert diag_factor_cuda.launch_count == before + 1
+        assert L.data_ptr() == out[:, o:o + 48, o:o + 48].data_ptr()
+        _assert_diag_close(L, Linv, blocks[i])
+        written[o:o + 48, o:o + 48] = True
+        assert bool((out[:, ~written] == guard).all()), o
+
+
+def test_diag_factor_kernel_unaligned_and_strided_views(dev):
+    """A batch that does not start on a 16-byte boundary takes the scalar
+    path and gives the same bits; a view whose last dimension is not of
+    stride 1 raises, and so does a non-float32 batch."""
+    D = _diag_blocks(9, dev)
+    L, Linv = diag_factor_cuda.diag_factor_cuda(D)
+    buf = torch.empty(3 * D.numel() + 1, device=dev)
+    Du = buf[1:D.numel() + 1].view_as(D)
+    Du.copy_(D)
+    Lu = buf[D.numel() + 1:2 * D.numel() + 1].view_as(D)
+    Linvu = buf[2 * D.numel() + 1:].view_as(D)
+    got = diag_factor_cuda.diag_factor_cuda(Du, Lu, Linvu)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], L) and torch.equal(got[1], Linv)
+    before = diag_factor_cuda.launch_count
+    with pytest.raises(ValueError):
+        diag_factor_cuda.diag_factor_cuda(D.transpose(1, 2))
+    with pytest.raises(ValueError):
+        diag_factor_cuda.diag_factor_cuda(D, L.transpose(1, 2))
+    with pytest.raises(TypeError):
+        diag_factor_cuda.diag_factor_cuda(D.double())
+    assert diag_factor_cuda.launch_count == before
+
+
+def test_diag_factor_kernel_matches_its_recurrence(dev):
+    """Against diag_factor_steps_plain on the card: the same recurrence,
+    also on blocks whose last pivot is below zero (finite, clamped), and
+    with garbage above the diagonal, which is never read."""
+    D = _diag_blocks(8, dev).double()
+    D[4:, 47, 47] -= 2.0 * torch.linalg.eigvalsh(D[4:])[:, -1]
+    D = D.float()
+    upper = torch.triu(torch.ones(48, 48, dtype=torch.bool, device=dev), 1)
+    L, Linv = diag_factor_cuda.diag_factor_cuda(
+        torch.where(upper, float("nan"), D))
+    L_ref, Linv_ref = diag_factor_cuda.diag_factor_steps_plain(D)
+    torch.cuda.synchronize()
+    assert torch.isfinite(L).all() and torch.isfinite(Linv).all()
+    assert (L[4:, 47, 47] < -1e13).all()
+    for got, want in ((L, L_ref), (Linv, Linv_ref)):
+        scale = want.abs().amax((1, 2), keepdim=True)
+        assert ((got - want).abs() / scale).max() < DIAG_RTOL
+
+
 def test_cholesky_hybrid_matches_k2(dev):
     A = _grams(200, 6, dev)[1::2].contiguous()  # the sigma^2 = 1 grams
     before = diag_factor_cuda.launch_count

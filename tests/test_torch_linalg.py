@@ -97,6 +97,85 @@ def test_diag_factor_plain_matches_pallas_interpret():
     assert torch.equal(L2, L)
 
 
+def _non_pd_last_pivot(D):
+    """D with its last pivot pushed below zero: the factor's clamp at 1e-30
+    takes over at the last column only, so the values stay finite."""
+    D = D.copy()
+    n = D.shape[-1]
+    D[:, n - 1, n - 1] -= 2.0 * np.linalg.eigvalsh(D)[:, -1]
+    return D
+
+
+@pytest.mark.parametrize("case", ["spd", "non_pd"])
+def test_diag_factor_steps_plain_matches_pallas_interpret(case):
+    """K3's recurrence (rsqrt of the clamped pivot, column-oriented inverse
+    by reciprocals) against the Pallas body in interpret mode on 8×8
+    blocks in float64, also where the clamp acts (the last pivot below
+    zero: L[7][7] = pivot·1e15, L⁻¹'s last row ·1e30): relative to each
+    output's largest entry, float64 rounding."""
+    D = _random_spd(5, 8, seed=7)
+    if case == "non_pd":
+        D = _non_pd_last_pivot(D)
+    L, Linv = diag_factor_cuda.diag_factor_steps_plain(t64(D))
+    want_L, want_inv = (np.asarray(x) for x in chol_pallas._diag_factor(
+        jnp.asarray(D), interpret=True))
+    assert np.isfinite(want_L).all() and np.isfinite(want_inv).all()
+    for got, want in ((L, want_L), (Linv, want_inv)):
+        assert torch.isfinite(got).all()
+        assert np.abs(got.numpy() - want).max() < 1e-12 * np.abs(want).max()
+        assert torch.equal(torch.triu(got, 1), torch.zeros_like(got))
+    if case == "non_pd":
+        assert (L[:, 7, 7] < -1e13).all() and Linv.abs().max() > 1e28
+
+
+def test_diag_factor_steps_plain_matches_plain_float32():
+    """At K3's size and type, 48×48 float32 (RBF diagonal blocks at
+    σ² ∈ {0.05, 1} and the reference's random SPD blocks): within 1e-4 of
+    max|L| and max|L⁻¹| of diag_factor_plain (cholesky_ex + solve), the
+    tolerance the kernel is held to on the card; L·L⁻¹ = I within 1e-4."""
+    D = np.concatenate([_spd_batch(48, B=2, noise=0.05),
+                        _spd_batch(48, B=2, noise=1.0),
+                        _random_spd(3, 48, seed=11)])
+    D32 = torch.tensor(D, dtype=torch.float32)
+    L, Linv = diag_factor_cuda.diag_factor_steps_plain(D32)
+    L_ref, Linv_ref = diag_factor_cuda.diag_factor_plain(D32)
+    assert (L - L_ref).abs().max() < 1e-4 * L_ref.abs().max()
+    assert (Linv - Linv_ref).abs().max() < 1e-4 * Linv_ref.abs().max()
+    assert (L @ Linv - torch.eye(48)).abs().max() < 1e-4
+    # only the lower triangle is read
+    L2, Linv2 = diag_factor_cuda.diag_factor_steps_plain(
+        torch.tril(D32) + 5.0 * torch.triu(torch.ones_like(D32), 1))
+    assert torch.equal(L2, L) and torch.equal(Linv2, Linv)
+
+
+def test_diag_factor_steps_plain_non_pd_is_finite():
+    """A 48×48 float32 block whose last pivot is below zero: finite, the
+    last diagonal entry pivot·1e15 as the clamp gives it, the other columns
+    those of the leading 47×47 block's factor."""
+    D = _non_pd_last_pivot(_random_spd(2, 48, seed=13))
+    D32 = torch.tensor(D, dtype=torch.float32)
+    L, Linv = diag_factor_cuda.diag_factor_steps_plain(D32)
+    assert torch.isfinite(L).all() and torch.isfinite(Linv).all()
+    assert (L[:, 47, 47] < -1e13).all()
+    L47, _ = diag_factor_cuda.diag_factor_plain(D32[:, :47, :47])
+    assert (L[:, :47, :47] - L47).abs().max() < 1e-4 * L47.abs().max()
+
+
+def test_diag_factor_writes_into_given_views():
+    """On the CPU, ``diag_factor`` with output views (as cholesky_hybrid
+    passes its factor's diagonal blocks) writes them and returns them."""
+    W = torch.tensor(_random_spd(2, 16, seed=2))
+    out = torch.zeros(2, 24, 24, dtype=torch.float64)
+    inv = torch.empty(2, 8, 8, dtype=torch.float64)
+    L11, inv11 = diag_factor_cuda.diag_factor(W[:, 8:, 8:], out[:, 8:16, 8:16],
+                                              inv)
+    want_L, want_inv = diag_factor_cuda.diag_factor_plain(W[:, 8:, 8:])
+    assert L11.data_ptr() == out[:, 8:16, 8:16].data_ptr()
+    assert inv11.data_ptr() == inv.data_ptr()
+    assert torch.equal(L11, want_L) and torch.equal(inv11, want_inv)
+    assert out[:, :8].abs().max() == 0 and out[:, 16:].abs().max() == 0
+
+
 def test_cholesky_hybrid_matches_pallas_hybrid():
     """B = 2, N = 20 at blk = 8 (pads to 24, three block steps), as
     tests/test_pallas_chol.py runs the reference; within 1e-5 of max|L|

@@ -38,7 +38,14 @@ _SIGNATURES = {
     "waveome_chol_forward": [_P, _P, _I, _I, _P],
     # d, l, linv, B, stream
     "waveome_diag_factor_forward": [_P, _P, _P, _I, _P],
+    # d, d_ld, d_bs, l, l_ld, l_bs, linv, i_ld, i_bs, B, stream
+    "waveome_diag_factor_strided": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL,
+                                    _LL, _I, _P],
 }
+# Entries that an older tree of sources may lack (tools/bench_kernels.py
+# times such trees through the entries they share): left unset when
+# missing, so that only a call to one raises.
+_OPTIONAL = {"waveome_diag_factor_strided"}
 
 _lib = None
 # What the last build printed (nvcc's -Xptxas -v register and spill
@@ -117,6 +124,8 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         for name, argtypes in _SIGNATURES.items():
+            if name in _OPTIONAL and not hasattr(lib, name):
+                continue
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -67,7 +67,8 @@ def cholesky_hybrid(A: torch.Tensor, blk: int = HBLK,
                     refine: int = 1) -> torch.Tensor:
     """Lower Cholesky of (..., N, N) by blocks of ``blk``: N is padded to a
     multiple of ``blk`` with an identity block; at each block step K3
-    (``diag_factor``) gives (L11, L11⁻¹) of the diagonal block, the panel
+    (``diag_factor``) reads the diagonal block of the padded copy and
+    writes L11 into the factor in place, L11⁻¹ into a buffer; the panel
     is P = A21·L11⁻ᵀ plus ``refine`` rounds of P += (A21 − P·L11ᵀ)·L11⁻ᵀ,
     and the trailing matrix takes A22 −= P·Pᵀ (batched GEMMs, updated in
     place on a padded copy). CUDA tensors need ``blk`` = 48, K3's size;
@@ -85,10 +86,10 @@ def cholesky_hybrid(A: torch.Tensor, blk: int = HBLK,
     W[:, :N, :N] = A3
     W[:, N:, N:] = torch.eye(Np - N, dtype=A.dtype, device=A.device)
     L = torch.zeros_like(W)
+    inv11 = W.new_empty((W.shape[0], blk, blk))
     for o in range(0, Np, blk):
         e = o + blk
-        L11, inv11 = diag_factor(W[:, o:e, o:e])
-        L[:, o:e, o:e] = L11
+        L11, _ = diag_factor(W[:, o:e, o:e], L[:, o:e, o:e], inv11)
         if e == Np:
             break
         A21 = W[:, e:, o:e]

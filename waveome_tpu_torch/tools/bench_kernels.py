@@ -1,5 +1,6 @@
-"""Times of kernels K1 (gram) and K2 (Cholesky) alone, for one or more
-directories of kernel sources, on the CUDA device.
+"""Times of kernels K1 (gram), K2 (Cholesky) and K3 (diagonal-block
+factor) alone, for one or more directories of kernel sources, on the CUDA
+device.
 
     python -m waveome_tpu_torch.tools.bench_kernels
         [--variant NAME=CSRC_DIR]... [--reps 10]
@@ -13,30 +14,55 @@ variant: the registers and spills that ``-Xptxas -v`` reports, K2 at
 1024x500x500 and 256x500x500 (RBF grams + sigma^2 I) with ``cholesky_ex``
 beside it and its residual against the input, K1 at 1024x500x500 (shared
 design) and 1024x500x2000 (a design per parameter set on the rows) with
-its error against ``gram_plain`` on a slice. A ``fill_`` of 1 GB is timed
-for scale.
+its error against ``gram_plain`` on a slice, K3 at 1024x48x48 and
+256x48x48 through the contiguous entry that every tree of sources has (with
+``cholesky_ex`` alone beside it, which gives L without L^-1), and the
+hybrid Cholesky at 1024x500x500: composed as before the strided entry, each
+diagonal block copied to a contiguous batch and L11 copied back, and, where
+the variant has the strided entry, as ``linalg.cholesky_hybrid`` runs it,
+in place. A ``fill_`` of 1 GB is timed for scale.
+
+A variant whose library exports ``waveome_k3_clocks(unsigned long long
+out[8], int reset)`` (a scratch copy of ``csrc/`` with ``clock64()`` counters
+summed by lane 0 of each warp into slots 0-4 at the ends of K3's five
+phases, and the warps counted in slot 7) also gets K3's clocks per warp by
+phase at B = 1, 256 and 1024.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import subprocess
+import time
 
 import numpy as np
 import torch
 
-from ..cuda_ops import _lib, chol_cuda, gram_cuda
+from ..cuda_ops import _lib, chol_cuda, diag_factor_cuda, gram_cuda
 from ..datasets import simulate
 from ..kernels import full_kernel_build
 from ..kernels.gram import gram_plain
+from ..linalg import cholesky_hybrid
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds of fn() (CUDA events, after one warm-up call)."""
+def cuda_ms(fn, reps, spin=True):
+    """Mean milliseconds of fn() on the card (CUDA events, after warm-up).
+    The timed launches queue behind a spin of the device
+    (``torch.cuda._sleep``) that outlasts the host's time to issue them, so
+    that a kernel shorter than its Python launch path is timed back to back
+    on the device and not at the host's pace (``spin=False``: at the
+    host's pace, as a caller that launches one at a time sees it)."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    per_call = time.perf_counter() - t0  # host and device, an upper bound
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if spin:
+        torch.cuda._sleep(int(min(1.5 * per_call * reps, 0.2) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -60,6 +86,52 @@ def rbf_grams(B, N, dev):
     noise = np.where(np.arange(B) % 2 == 0, 0.05, 1.0)
     return torch.tensor(K[None] + noise[:, None, None] * np.eye(N),
                         dtype=torch.float32, device=dev)
+
+
+def hybrid_with_copies(A, blk=diag_factor_cuda.NB):
+    """cholesky_hybrid as it was composed before K3 took strided views:
+    each diagonal block copied to a contiguous batch, L11 copied into the
+    factor (two copy launches per block step)."""
+    N = A.shape[-1]
+    Np = N + (-N) % blk
+    W = A.new_zeros((A.shape[0], Np, Np))
+    W[:, :N, :N] = A
+    W[:, N:, N:] = torch.eye(Np - N, dtype=A.dtype, device=A.device)
+    L = torch.zeros_like(W)
+    for o in range(0, Np, blk):
+        e = o + blk
+        L11, inv11 = diag_factor_cuda.diag_factor_cuda(
+            W[:, o:e, o:e].contiguous())
+        L[:, o:e, o:e] = L11
+        if e == Np:
+            break
+        A21 = W[:, e:, o:e]
+        P = A21 @ inv11.mT
+        P = P + (A21 - P @ L11.mT) @ inv11.mT
+        L[:, e:, o:e] = P
+        W[:, e:, e:].baddbmm_(P, P.mT, alpha=-1.0)
+    return L[:, :N, :N]
+
+
+K3_PHASES = ("load", "factor", "L out", "inverse", "L^-1 out")
+
+
+def k3_clocks(lib, D):
+    """K3's clock64() counts per warp by phase, from a library that has
+    the counters (see the module's docstring)."""
+    fn = lib.waveome_k3_clocks
+    fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+    fn.restype = ctypes.c_int
+    buf = (ctypes.c_ulonglong * 8)()
+    for B in (1, 256, 1024):
+        _lib.check(fn(buf, 1), "waveome_k3_clocks")
+        diag_factor_cuda.diag_factor_cuda(D[:B])
+        torch.cuda.synchronize()
+        _lib.check(fn(buf, 1), "waveome_k3_clocks")
+        per = [buf[i] / buf[7] for i in range(len(K3_PHASES))]
+        print(f"  K3 clocks per warp at B={B}: " + ", ".join(
+            f"{n} {c:.0f}" for n, c in zip(K3_PHASES, per))
+            + f"; total {sum(per):.0f}")
 
 
 def main():
@@ -92,6 +164,11 @@ def main():
     for B in (1024, 256):
         ms = cuda_ms(lambda: torch.linalg.cholesky_ex(A[:B]), args.reps)
         print(f"cholesky_ex {B}x500x500: {ms:.3f} ms")
+    D = A[:, :48, :48].contiguous()
+    want_d = diag_factor_cuda.diag_factor_plain(D)
+    for B in (1024, 256):
+        ms = cuda_ms(lambda: torch.linalg.cholesky_ex(D[:B]), 20 * args.reps)
+        print(f"cholesky_ex alone {B}x48x48: {ms * 1e3:.2f} us")
     buf = torch.empty(1024 * 500 * 500, device=dev)
     print(f"fill_ of 1 GB: {cuda_ms(lambda: buf.fill_(1.0), args.reps):.3f} "
           f"ms")
@@ -121,6 +198,22 @@ def main():
                      max(args.reps // 2, 1))
         print(f"  K1 1024x500x2000, a design per set: {ms:.3f} ms "
               f"(rel err {err:.3g})")
+        got = diag_factor_cuda.diag_factor_cuda(D)
+        err = max(float((g - w).abs().max() / w.abs().max())
+                  for g, w in zip(got, want_d))
+        for B in (1024, 256):
+            ms, host_ms = (cuda_ms(
+                lambda: diag_factor_cuda.diag_factor_cuda(D[:B]),
+                20 * args.reps, spin) for spin in (True, False))
+            print(f"  K3 {B}x48x48: {ms * 1e3:.2f} us (at the host's pace "
+                  f"{host_ms * 1e3:.2f} us; rel err {err:.3g})")
+        if hasattr(_lib.library(), "waveome_k3_clocks"):
+            k3_clocks(_lib.library(), D)
+        ms = cuda_ms(lambda: hybrid_with_copies(A), args.reps)
+        print(f"  hybrid 1024x500x500, blocks copied: {ms:.3f} ms")
+        if hasattr(_lib.library(), "waveome_diag_factor_strided"):
+            ms = cuda_ms(lambda: cholesky_hybrid(A), args.reps)
+            print(f"  hybrid 1024x500x500, in place: {ms:.3f} ms")
 
 
 if __name__ == "__main__":
